@@ -1,6 +1,6 @@
-"""azplugins_tpu: a TPU-native soft-matter MD engine.
+"""azplugins_tpu: a JAX soft-matter MD engine.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 stattlab/azplugins (a HOOMD-blue component), self-contained: it includes
 both azplugins' potentials/updaters/computes and the minimal engine
 substrate they ride on (state, box, neighbor lists, integrators, variants,
@@ -33,11 +33,12 @@ import os as _os
 
 import jax as _jax
 
-# MD physics must never run through silently-degraded matmuls: TPU
-# default-precision f32 dots round operands to bf16 on the MXU (this
-# teleported boundary-crossing particles by ~0.4% of the box until
-# core/box.py went matmul-free). The engine itself avoids matmuls on
-# physical data; this guard protects observables and future code.
+# MD physics must never run through silently-degraded matmuls: on the
+# GPU, default-precision f32 dots may run in TF32 on the tensor cores,
+# which keeps ~10 mantissa bits (a box-matrix product in TF32 would
+# shift boundary-crossing particles by ~1e-3 of the box). The engine
+# itself avoids matmuls on physical data (core/box.py is componentwise);
+# this guard protects observables and future code.
 #
 # NOTE: this is a process-global setting that also affects user JAX code
 # importing this library. It is skipped if the user already configured

@@ -1,6 +1,6 @@
 // aztraj: native trajectory / checkpoint engine.
 //
-// TPU-native analog of the reference's IO stack: azplugins defers all
+// Analog of the reference's IO stack: azplugins defers all
 // trajectory/checkpoint IO to HOOMD's GSD machinery (SURVEY §5,
 // "Checkpoint/resume: ... deferred to HOOMD GSD snapshots"). This is the
 // from-scratch replacement: a chunked, CRC-checked, append-only binary

@@ -1,10 +1,10 @@
 """Triclinic periodic simulation box.
 
-TPU-native replacement for the HOOMD ``BoxDim`` substrate the reference
+Replacement for the HOOMD ``BoxDim`` substrate the reference
 plugin rides on (wrap used at /root/reference/src/HarmonicBarrier.h:169-171,
 minimum image implied by the pair force drivers). The box is an immutable
 pytree so it can live inside jitted step functions; all geometry ops are
-branch-free vector math suitable for the TPU VPU.
+branch-free elementwise math.
 
 Conventions (HOOMD-compatible):
   * box is centered on the origin: lo = -L/2, hi = +L/2
@@ -109,13 +109,13 @@ class Box:
     def _lattice_shift(self, s: jnp.ndarray) -> jnp.ndarray:
         """``s @ h.T`` written componentwise.
 
-        NEVER use a matmul here: on TPU, default-precision f32 matmuls
-        round the operands to bf16 on the MXU, so box lengths that are
-        not exactly bf16-representable (e.g. the 64k bench's L=42.1727 ->
-        42.25) teleport every boundary-crossing particle by ~0.4% of L.
-        That silently pumped energy into trajectories and created
-        overlapping phantom pairs. Componentwise VPU multiplies are
-        exactly rounded f32.
+        NEVER use a matmul here: on the GPU, default-precision f32
+        matmuls may run in TF32 (~10 mantissa bits), so box lengths that
+        are not exactly TF32-representable (e.g. the 64k bench's
+        L=42.1727) would shift every boundary-crossing particle by up to
+        ~1e-3 of L, pumping energy into trajectories and creating
+        overlapping phantom pairs. Componentwise f32 multiplies are
+        exactly rounded.
         """
         Lx, Ly, Lz = self.L[0], self.L[1], self.L[2]
         xy, xz, yz = self.tilt[0], self.tilt[1], self.tilt[2]
@@ -163,9 +163,9 @@ class Box:
     def min_image_components(self, dx, dy, dz):
         """Minimum image on separate x/y/z component arrays.
 
-        TPU-critical form: large pairwise intermediates must be [N, M]
-        per component, never [..., 3] — a minor axis of 3 is padded to a
-        full 128-lane tile (42x memory blowup). Handles triclinic tilt.
+        Large pairwise intermediates stay [N, M] per component, never
+        [..., 3], so each component array is contiguous. Handles
+        triclinic tilt.
         """
         Lx, Ly, Lz = self.L[0], self.L[1], self.L[2]
         xy, xz, yz = self.tilt[0], self.tilt[1], self.tilt[2]
@@ -187,7 +187,7 @@ class Box:
 
         def dist(u, v, w):
             n = jnp.cross(v, w)
-            # elementwise dot: keep this off the MXU (see _lattice_shift)
+            # elementwise dot: no matmul precision loss (see _lattice_shift)
             return jnp.abs(jnp.sum(u * n)) / jnp.linalg.norm(n)
 
         return jnp.stack([dist(a, b, c), dist(b, c, a), dist(c, a, b)])

@@ -4,9 +4,9 @@ The reference uses random123 (Philox) keyed on (stream id, seed, timestep)
 with per-particle or per-pair counters so that every rank of an MPI job
 draws identical noise without communication
 (/root/reference/src/DPDPairEvaluatorGeneralWeight.h:227-231,
-/root/reference/src/RNGIdentifiers.h:20-27). The TPU build keeps the same
+/root/reference/src/RNGIdentifiers.h:20-27). This engine keeps the same
 discipline with a vectorized Threefry-2x32 implemented directly in jnp
-integer ops: pure VPU math, no state, bitwise identical regardless of
+integer ops: pure elementwise math, no state, bitwise identical regardless of
 sharding or device count.
 
 Streams mirror the reference identifiers.
@@ -33,7 +33,7 @@ class Stream:
     BROWNIAN_FLOW = 201
     LANGEVIN_FLOW = 202
     PARTICLE_EVAPORATOR = 203
-    # new streams for the TPU engine's own integrators
+    # new streams for this engine's own integrators
     LANGEVIN = 210
     BROWNIAN = 211
     THERMALIZE = 212
@@ -47,8 +47,8 @@ def _rotl32(x, r):
 
 # Threefry-2x32 rotation schedule (Salmon et al., SC'11).
 _ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
-# plain int, materialized inside each trace: a module-level DeviceArray
-# would be a captured constant, which Pallas kernel bodies reject
+# plain int, materialized inside each trace (a module-level device
+# array would be a captured constant of every trace)
 _PARITY = 0x1BD11BDA
 # Crush-resistant minimum round count for Threefry-2x32 (Salmon et al.
 # SC'11 Table 2) — used by the hot per-pair DPD noise paths.
@@ -59,7 +59,7 @@ def threefry2x32(k0, k1, c0, c1, rounds: int = 20):
     """Threefry-2x32 block cipher (random123 round/injection schedule).
 
     All arguments are uint32 arrays (broadcast together). Returns two
-    uint32 arrays of the broadcast shape. This is straight-line VPU
+    uint32 arrays of the broadcast shape. This is straight-line elementwise
     integer math and vectorizes over millions of counters per step.
 
     ``rounds`` follows the random123 convention: a key injection after

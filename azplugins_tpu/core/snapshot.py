@@ -78,7 +78,7 @@ class MPCDData:
 
     Mirrors the MPCD snapshot block the reference's velocity computes read
     (/root/reference/src/ParticleDataLoader.h:24-125,
-    /root/reference/src/VelocityFieldCompute.h:331-352). The TPU engine
+    /root/reference/src/VelocityFieldCompute.h:331-352). This engine
     stores and exposes this stream for the computes
     (``include_mpcd_particles=True``); MPCD streaming/collision dynamics
     are the host engine's job in the reference (HOOMD's mpcd package) and

@@ -1,9 +1,9 @@
 """Device-resident simulation state.
 
-The TPU replacement for HOOMD's ``ParticleData``/``SystemDefinition``
+The replacement for HOOMD's ``ParticleData``/``SystemDefinition``
 substrate (particle arrays consumed by the reference at
 /root/reference/src/TwoStepLangevinFlow.h:113-126). State is one immutable
-pytree of static-shaped HBM arrays; a timestep is a pure function
+pytree of static-shaped device arrays; a timestep is a pure function
 ``State -> State`` that XLA compiles once. The user-facing State is in tag
 order (index == tag); the engine's hot loop runs the same pytree in the
 dense cell-slot order of ops/dense.py, where ``tag`` maps slots back to
@@ -26,7 +26,7 @@ __all__ = ["State", "state_from_snapshot", "state_to_snapshot", "thermalize_mome
 class State:
     """All per-particle and topology arrays plus the box.
 
-    Shapes: N particles, NB bonds. All float arrays are float32 (TPU-native);
+    Shapes: N particles, NB bonds. All float arrays are float32;
     ids are int32.
     """
 

@@ -1,6 +1,6 @@
 """Validated per-type / per-type-pair parameters.
 
-TPU-native equivalent of HOOMD's ``TypeParameterDict``/``ParameterDict``
+Equivalent of HOOMD's ``TypeParameterDict``/``ParameterDict``
 layer used throughout the reference Python API
 (/root/reference/src/pair.py:116, bond.py:61, external.py:63). Parameters
 are set by type *name* (single names or unordered pairs), validated and

@@ -4,7 +4,7 @@ The reference exposes observables through ``@hoomd.logging.log`` with a
 category and tests the contract with ``hoomd.conftest.logging_check``
 (/root/reference/src/compute.py:87-91,
 /root/reference/src/pytest/test_compute.py:105-115). This module provides
-the same surface for the TPU engine:
+the same surface for this engine:
 
   * ``log(category=..., requires_run=...)`` — property decorator that
     registers the quantity's metadata on the class;

@@ -1,6 +1,6 @@
 """Integration methods: NVE, Langevin(+flow), Brownian(+flow).
 
-TPU rebuild of the integrator layer. ConstantVolume is standard velocity
+Rebuild of the integrator layer. ConstantVolume is standard velocity
 Verlet; LangevinFlow/BrownianFlow re-derive the reference's legacy flow
 integrators (/root/reference/src/TwoStepLangevinFlow.h:100-249,
 /root/reference/src/TwoStepBrownianFlow.h:103-182): drag is taken relative

@@ -156,8 +156,7 @@ class LJ(Pair):
 
     azplugins scripts mix plugin potentials with HOOMD's own md.pair
     classes; this is the textbook U = 4 eps ((sigma/r)^12 - (sigma/r)^6)
-    so those scripts port without rewriting the solvent model. Gets the
-    Pallas fast path (incl. the approximate-reciprocal force variant).
+    so those scripts port without rewriting the solvent model.
     """
 
     _evaluator_name = "LJ"

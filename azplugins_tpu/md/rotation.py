@@ -1,6 +1,6 @@
 """Rigid-rotor integration: symplectic NO_SQUISH quaternion dynamics.
 
-TPU rebuild of the rotational half of HOOMD's two-step integrators, which
+Rebuild of the rotational half of HOOMD's two-step integrators, which
 the reference's aniso potential relies on (torque outputs of
 /root/reference/src/AnisoPairEvaluatorTwoPatchMorse.h:179-192 exist to be
 integrated by HOOMD's NVE/Langevin; BASELINE config 4 "patchy colloids").

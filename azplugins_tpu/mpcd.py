@@ -4,8 +4,7 @@ The reference plugin only READS an MPCD particle stream — HOOMD's mpcd
 package generates it (DEVIATIONS.md §7-MPCD,
 /root/reference/src/VelocityFieldCompute.h:331-352). A user switching
 engines needs the generator too, so this module implements the standard
-multi-particle collision dynamics solvent (Malevanets & Kapral 1999)
-TPU-natively:
+multi-particle collision dynamics solvent (Malevanets & Kapral 1999):
 
 * **Streaming** is ballistic between collision events, so the solvent
   advances in one fused jump per interval (x += v dt; with a body force,
@@ -15,11 +14,8 @@ TPU-natively:
   so trajectories are independent of run() chunking and bitwise
   reproducible across checkpoint restarts (counter-based RNG keyed on
   the collision timestep).
-* **Cell binning** uses the same fused-key sort + searchsorted-offset
-  pattern as the MD engine's rebin (ops/dense.py): sort (cell, row)
-  keys, per-cell sums from segment boundaries — no atomics, no
-  scatter-add (TPU has neither; SURVEY §2.12 maps the reference's
-  atomic histograms to exactly this formulation).
+* **Cell binning** is one fused scatter-add of every per-cell sum
+  (count, mass, momentum, m v^2) keyed on the shifted cell id.
 * **Galilean invariance** via the standard random grid shift per
   collision (Ihle & Kroll 2001).
 * Optional cell-level velocity-rescale thermostat to ``kT`` (the
@@ -257,13 +253,10 @@ class SRD:
         )
 
         # one fused scatter-add produces every per-cell reduction at once:
-        # (count, mass, momentum xyz, m v^2). Measured on the v5e this
-        # replaces the earlier sort + searchsorted + cumsum formulation at
-        # ~6x less time — jnp.searchsorted alone (C+1 binary-search
-        # queries, each a gather per iteration) cost ~34 ms at 262k cells,
-        # half the collision. XLA lowers duplicate-index scatter-add
-        # deterministically on TPU and CPU (no atomics), so collisions
-        # stay bitwise reproducible run-to-run.
+        # (count, mass, momentum xyz, m v^2). On the CPU XLA lowers it
+        # deterministically; on the GPU duplicate indices lower to
+        # atomics, so the f32 cell sums (and the collision) are
+        # reproducible run to run only to rounding (DEVIATIONS.md §14).
         mv = vel * m[:, None]
         mv2 = jnp.sum(vel * mv, axis=1)
         pay = jnp.concatenate(
@@ -345,9 +338,8 @@ class SRD:
             scale = jnp.where(cnt > 1.5, scale, 1.0)
             cols.append(scale[:, None])
 
-        # ONE fused per-particle gather of every per-cell quantity — row
-        # gathers dominate after the scatter fix (~3 ms each at 262k
-        # rows), and gather cost scales with rows, not columns. The
+        # ONE fused per-particle gather of every per-cell quantity: gather
+        # cost scales with rows, not columns. The
         # appended row C is the trash cell: invalid rows gather zeros and
         # are overwritten below.
         table = jnp.concatenate(cols, axis=1)
@@ -454,8 +446,8 @@ class CollisionCoupling:
     runs INSIDE the jitted step loop: Simulation windows the chunk at the
     collision period and applies the collision unconditionally at each
     window boundary — one collision evaluation per period, no host chunk
-    splits (the per-firing dispatch + blocking sync that round 3
-    eliminated for device-pure updaters). Replacing the trigger with a
+    splits (no per-firing dispatch + blocking sync, as for the other
+    device-pure updaters). Replacing the trigger with a
     custom schedule falls back to host-boundary firing between chunks.
 
         srd = az.mpcd.SRD(dt=dt, period=20, cell_size=1.0, kT=1.0)

@@ -1,9 +1,9 @@
 """Anisotropic pair force driver: forces + torques over the neighbor list.
 
-TPU rebuild of HOOMD's ``AnisoPotentialPair<Evaluator>`` (SURVEY §2.3).
+Rebuild of HOOMD's ``AnisoPotentialPair<Evaluator>`` (SURVEY §2.3).
 Same dense masked-row-reduction shape as the isotropic driver, extended
 with particle orientations in and torques out — all pair-shaped values are
-componentwise [N, M] arrays (TPU tiling rule; see ops/pair_force.py).
+componentwise [N, M] arrays (see ops/pair_force.py).
 With a full neighbor list each particle sums its *own* torque from every
 pair (the j-side torque appears when the pair is visited from j's row).
 """

@@ -1,9 +1,10 @@
 """Binning operations for velocity field computes.
 
-TPU rebuild of SURVEY §2.6's binning layer: instead of atomicAdd scatter
-(/root/reference/src/VelocityFieldComputeGPU.cuh:65-70), particles map to a
-flat bin id and mass/momentum are accumulated with ``segment_sum`` — the
-canonical TPU histogram (sorted segment reduction, no atomics).
+Rebuild of SURVEY §2.6's binning layer
+(/root/reference/src/VelocityFieldComputeGPU.cuh:65-70): particles map to a
+flat bin id and mass/momentum are accumulated with one scatter-add per
+grid (atomics on the GPU: reproducible to f32 rounding run to run,
+DEVIATIONS.md §14).
 
   * Cartesian (/root/reference/src/CartesianBinningOperation.h:22-54):
     bins (x, y, z); velocity passes through.

@@ -1,10 +1,11 @@
 """Bond force driver: scatter-add over the static bond table.
 
-TPU rebuild of HOOMD's ``PotentialBond<Evaluator>`` loop (SURVEY §3.2).
+Rebuild of HOOMD's ``PotentialBond<Evaluator>`` loop (SURVEY §3.2).
 Bond topology is static (scissile Quartic bonds "break" by producing zero
 force, never by leaving the table — same as the reference, which retypes
-rather than deletes). The two endpoint scatters use ``.at[].add`` which XLA
-lowers to a sorted segment reduction on TPU.
+rather than deletes). The two endpoint scatters use ``.at[].add``; on the
+GPU a scatter with repeated indices lowers to atomics, whose order varies
+run to run (DEVIATIONS.md §14).
 """
 
 from __future__ import annotations

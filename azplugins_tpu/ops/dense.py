@@ -1,33 +1,32 @@
-"""Dense cell-grid engine: the TPU-native hot path.
+"""Dense cell-grid engine: the production force and rebuild path.
 
-Measured on TPU v5e: XLA gathers run at ~0.14 G elements/s while dense
-VPU math runs ~50M pair-evaluations/ms — a ~300x gap. A padded neighbor
-list (HOOMD's design, built for GPU hardware gather) is therefore the
-wrong architecture for TPU. This module implements the TPU-first design:
+Particles are binned into a regular cell grid and every pair force is
+evaluated as dense, masked per-cell-pair blocks, so the hot loop is
+regular elementwise math plus row reductions that XLA fuses:
 
   * Particles live in a cell-dense slot layout: ``S = n_cells * cap``
     slots, cell-major. Empty slots carry ``tag = -1``.
   * Neighbor access wrap-pads the ``[Dx, Dy, Dz, cap]`` grid with a
     one-cell periodic halo (lattice shifts folded into the halo faces)
-    and takes one *static slice* per stencil offset — contiguous
-    copies, zero gathers. (jnp.roll per offset was the original design;
-    see _halo_pad for the TPU miscompile that retired it.)
-  * Pair forces evaluate the full dense ``[n_cells, cap, stencil*cap]``
-    block with masking — trading ~8x redundant pair evaluations for
-    perfectly regular VPU work (the same trade GROMACS makes for SIMD
-    with cluster pair lists, arXiv:1804.06231, and the winning trade on
-    TPU by two orders of magnitude).
-  * Rebinning (the Verlet-buffer rebuild) is one multi-payload
-    ``lax.sort`` + one row scatter — no per-array gathers.
+    and takes one *static slice* per stencil offset: contiguous copies,
+    no per-pair gathers.
+  * Pair forces evaluate dense ``[n_cells, cap, cap]`` blocks per stencil
+    offset with masking, trading redundant pair evaluations (pairs
+    between the cutoff and the cell corners) for perfectly regular work
+    (the trade GROMACS makes with cluster pair lists, arXiv:1804.06231).
+    Whether this beats a padded Verlet list on the GPU is an open
+    measurement (ROADMAP 1.2).
+  * Rebinning (the Verlet-buffer rebuild) is one fused-key ``lax.sort``
+    plus row gathers of a packed payload.
 
 The slot layout is also the distribution layout: sharding the cell-major
 slot axis over a device mesh is a spatial domain decomposition, and XLA
-lowers the stencil rolls across shard boundaries to collective permutes
-(the halo exchange of SURVEY §2.12) automatically.
+lowers the halo pads across shard boundaries to collective permutes
+(the halo exchange of SURVEY §2.12).
 
 State in slot order is an ordinary ``State`` pytree with S rows; the tag
-array maps slots back to user order. RNG is keyed on tags, so
-trajectories are bitwise independent of the layout.
+array maps slots back to user order. RNG is keyed on tags, so the random
+streams do not depend on the layout.
 """
 
 from __future__ import annotations
@@ -71,10 +70,6 @@ class GridSpec:
     cap: int = static_field()  # slots per cell
     r_cut: float = static_field()
     buffer: float = static_field()
-    # j-subtile height for the Pallas pair kernel, chosen from the
-    # equilibrated occupancy block structure at tune time (see
-    # choose_subtile_h); None = pallas_pair.subtile_h(cap) heuristic
-    subtile: int | None = static_field(default=None)
 
     @property
     def n_cells(self) -> int:
@@ -188,8 +183,9 @@ class GridSpec:
     def grow(self, gentle: bool = False) -> "GridSpec":
         # 1.25x (rounded up to 8) balances recompile count against the
         # cap^2 cost of oversized cells; ``gentle`` adds one 8-slot
-        # sublane quantum instead (post-tune fluctuations need exactly
-        # one — see Simulation._grow_and_rebuild)
+        # quantum instead (post-tune fluctuations need exactly one — see
+        # Simulation._grow_and_rebuild). The 8-multiple rounding is not
+        # yet measured on the H100.
         new_cap = (
             self.cap + 8
             if gentle
@@ -238,10 +234,10 @@ def _cell_id(x, y, z, box: Box, dims):
 
 # The rebin payload is a list of (name, width) BLOCKS, each a contiguous
 # State array ([n, w] with w in 1..4). Packing the payload is then one
-# lane concatenation of whole arrays and unpacking is static lane slices —
-# no per-column stacking and no [S, K] <-> [K, S] transposes, which
-# dominated the rebuild cost when the payload moved as 14+ separate [S]
-# columns (measured 1.5 ms of a 3.1 ms rebuild at 64k).
+# concatenation of whole arrays and unpacking is static column slices —
+# no per-column stacking and no [S, K] <-> [K, S] transposes (the payload
+# once moved as 14+ separate [S] columns, and those transposes dominated
+# the rebuild).
 #
 # Optional blocks ("mass", "quat", ...) are included only when the
 # simulation uses them (host-side check at attach); dropped columns are
@@ -374,19 +370,18 @@ def _global_assembly(packed_in, cid, n, spec: "GridSpec", layout: tuple,
                      n_valid: int | None = None):
     """Full fused-key sort of all n rows -> ([S, K] payload, valid, overflow).
 
-    Sort, then one contiguous row-gather of the packed payload: TPU sort
-    compile time scales superlinearly in operand count (measured: 2
-    operands ~15s, 26 operands >10min at 128k), while a row-major gather
-    of [n, K] compiles in <1s and runs at copy speed. When the combined
-    (cid, idx) key fits int32 a single fused key sorts ~2x faster still.
+    Sort a narrow key, then one contiguous row-gather of the packed
+    payload: sort compile time grows quickly with the operand count,
+    while a row-major gather of [n, K] compiles fast and runs at copy
+    speed. When the combined (cid, idx) key fits int32 a single fused key
+    replaces the two-operand sort.
 
     ``n_valid`` is a static upper bound on the number of VALID rows
     (rows with cid < C). Invalid rows carry cid == C and sort to the
     tail, so the sorted-payload gather only needs the first ``n_valid``
     rows — at rebin time (n == S, valid count == N particles) this cuts
     the first [*, K] row gather from S to N rows (~42% fewer rows at the
-    64k bench shapes; gathers cost per ROW on TPU — BENCH.md rule of
-    thumb). If the bound is ever violated the overflow flag trips (the
+    64k bench shapes). If the bound is ever violated the overflow flag trips (the
     caller grows and replays), so truncation can never silently corrupt.
     """
     C = spec.n_cells
@@ -394,9 +389,9 @@ def _global_assembly(packed_in, cid, n, spec: "GridSpec", layout: tuple,
     S = spec.S
     idx = jnp.arange(n, dtype=jnp.int32)
     # bit-packed fused key: cid in the high bits, row index low. Shift/mask
-    # recovery is exact integer math — int32 floor division here would be
-    # lowered through f32 on TPU and can round off by one near exact
-    # multiples, scattering particles into the wrong cell.
+    # recovery is exact integer math, with no integer division that a
+    # backend could lower through f32 (which can round off by one near
+    # exact multiples, scattering particles into the wrong cell).
     idx_bits = max(1, (n - 1).bit_length())
     use_fused = os.environ.get("AZTPU_FUSED_KEY", "1") != "0"
     if use_fused and (C + 1) << idx_bits < 2**31:
@@ -409,21 +404,17 @@ def _global_assembly(packed_in, cid, n, spec: "GridSpec", layout: tuple,
 
     head = n if n_valid is None else min(n, n_valid)
 
-    # per-cell start offsets in the sorted order. The scan method's
-    # binary search gathers all C+1 query rows per iteration
-    # (~0.2 ms at 64k bench shapes — the rebuild's third-largest term),
-    # but the method="sort" alternative was MEASURED SLOWER on the v5e
-    # (0.70 vs 0.20 ms: its merged sort carries positions through
-    # multi-operand sorts + unpermute gathers). Scan stays. (BENCH.md
-    # round-4 rebin section.)
+    # per-cell start offsets in the sorted order (default scan method;
+    # the choice against method="sort" is not yet measured on the H100,
+    # ROADMAP 1.3)
     start = jnp.searchsorted(cid_s, jnp.arange(C + 1, dtype=jnp.int32))
     start = start.astype(jnp.int32)
     counts = start[1:] - start[:-1]  # [C]
     # start[C] = total valid rows; > head would truncate real particles
     overflow = jnp.any(counts > cap) | (start[C] > head)
     # exact max occupancy: on overflow the caller can size the grown cap
-    # in ONE jump instead of walking 1.25x rungs (one ~100 s chunk
-    # recompile per rung on chip — Simulation._grow_and_rebuild)
+    # in ONE jump instead of walking 1.25x rungs (one chunk recompile per
+    # rung — Simulation._grow_and_rebuild)
     max_occ = jnp.max(counts)
 
     # slot-side source rows: slot (c, r) <- sorted row start[c] + r
@@ -436,10 +427,9 @@ def _global_assembly(packed_in, cid, n, spec: "GridSpec", layout: tuple,
     if os.environ.get("AZTPU_REBIN_COMPOSED", "0") == "1":
         # composed-index form: one narrow [S] gather composes the sort
         # permutation with the slot map, so the payload moves through ONE
-        # [S, K] row gather instead of two (perm then src). MEASURED
-        # REJECTION (v5e 2026-08-19): narrow [S] gathers cost ~10 ns/row
-        # vs ~6.4 ns/row for wide row gathers — full rebin 4.78 ms vs
-        # 3.09 ms at untuned 64k shapes. Kept as a tested ablation.
+        # [S, K] row gather instead of two (perm then src). Off by
+        # default; kept as a tested ablation until measured on the H100
+        # (ROADMAP 3.3).
         perm_pad = jnp.concatenate([perm[:head], jnp.full((1,), n, jnp.int32)])
         src_in = jnp.take(perm_pad, src)  # [S] narrow index gather
         packed_pad = jnp.concatenate([packed_in, default_row], axis=0)
@@ -474,8 +464,7 @@ def _incremental_assembly(packed, cid, valid, spec: "GridSpec", layout: tuple,
     production drift) need a global sort; each cell then merges its stays
     with its arrivals by one sort along the lane axis of [C, cap + Mc]
     with the key prev_slot*128 + src_ptr — a ~3-8x smaller sort volume
-    than the S-row global sort (BENCH.md: rebin is the second-largest
-    step-time term). The result is BITWISE identical to
+    than the S-row global sort. The result is BITWISE identical to
     ``_global_assembly``: same membership, same order, same overflow
     truncation (both keep the cap smallest input rows per cell).
 
@@ -566,11 +555,9 @@ def _bin_to_slots(
 
     Gather-only dataflow: after the key sort, slot contents are produced
     by a ROW GATHER from the sorted payload (for slot (c, r): row
-    ``start[c] + r``, valid while ``r < count[c]``). The original
-    formulation scattered sorted rows to their slots; on TPU that
-    row-scatter plus the rank-in-cell cummax cost ~3x the gather form
-    (row scatters issue one small DMA per row; the gather side needs no
-    rank at all because the slot grid enumerates ranks implicitly).
+    ``start[c] + r``, valid while ``r < count[c]``). The gather side
+    needs no rank-in-cell at all because the slot grid enumerates ranks
+    implicitly, and it writes every slot exactly once (no scatter).
     """
     n = state.N
     S = spec.S
@@ -699,9 +686,8 @@ class JBlocks:
 
     Coordinates are **pre-shifted**: rolls that wrap around the periodic
     box carry the lattice-vector shift folded in per cell, so ``xi - jx``
-    is the true separation with no per-pair minimum-image math (the
-    biggest single VPU saving in the pair hot loop — measured 1.55x with
-    the sentinel-empty trick). Empty slots sit at far sentinel x
+    is the true separation with no per-pair minimum-image math in the
+    pair hot loop. Empty slots sit at far sentinel x
     (see _sentinel_x), outside every cutoff.
     """
 
@@ -735,11 +721,8 @@ def _halo_pad(g, axis, shift_hi):
     (0 for non-coordinate payloads). Sequential padding of the three
     axes composes corner shifts exactly (n1*a1 + n2*a2 + n3*a3).
 
-    Replaces jnp.roll per offset: rolls with mixed-sign multi-axis
-    shifts were observed miscompiling on TPU downstream of a lax.cond
-    (wrong neighbor data for (+1,-1,*) offsets -> missed pairs ->
-    exploding trajectories); pad+slice lowers to concatenate + static
-    slices, is immune, and does less copying.
+    One pad serves every offset: pad+slice lowers to a concatenate plus
+    static slices, with less copying than one ``jnp.roll`` per offset.
     """
     D = g.shape[axis]
     lo = jax.lax.slice_in_dim(g, D - 1, D, axis=axis)
@@ -792,8 +775,7 @@ def _axis_shift_tables(box: Box):
 def _roll_cells(a, spec: GridSpec, shift):
     """``jnp.roll(a, +shift, axes=(0,1,2))`` via wrap-pad + static slice.
 
-    Used to un-roll Newton j-side accumulators back to their true cells
-    (roll avoided for the same TPU miscompile described in _halo_pad).
+    Used to un-roll Newton j-side accumulators back to their true cells.
     ``a``: [Dx, Dy, Dz, ...]; shift: length-3 ints in {-1, 0, 1}.
     """
     Dx, Dy, Dz = spec.dims
@@ -868,90 +850,6 @@ def _pair_params(tables: dict, t_i, t_j, T: int):
             acc = acc + oi[a] * row
         out[key] = acc
     return out
-
-
-def _table_scalars(tabs: list, T: int):
-    """Pack per-type-pair [T, T] tables into Pallas kernel scalars.
-
-    TPU vector lanes cannot gather, so per-pair parameters are
-    reconstructed arithmetically from the f32 typeid planes. Returns
-    ``(scalars, stride, basis, unpack)``: the flat scalar list (``stride``
-    values per table), ``basis(ti, tj)`` computing the shared
-    interpolation basis once per pair batch, and ``unpack(svals, off, b)``
-    reconstructing one table's per-pair value from it.
-
-    * T == 1: raw scalars (zero per-pair cost; basis unused).
-    * T == 2: exact bilinear in (ti, tj) — 3 fma/table/pair.
-    * 3 <= T: exact one-hot contraction — the T^2 indicator products are
-      computed ONCE per pair batch and shared across every table
-      (typeids are exact small integers in f32, so ``ti == a`` is exact;
-      empty slots at -1 match nothing and reconstruct 0, which the far
-      sentinel coordinates mask anyway), then each table costs T^2
-      fma/pair. A Lagrange polynomial through the type indices would be
-      marginally cheaper but rounds (the T >= 4 Vandermonde inverse has
-      non-dyadic entries); one-hot reconstructs table entries exactly,
-      matching the XLA _pair_params contraction bitwise.
-    """
-    if T == 1:
-        scalars = [jnp.asarray(t, jnp.float32).reshape(()) for t in tabs]
-
-        def basis(ti, tj):
-            return None
-
-        def unpack(svals, off, b):
-            return svals[off]
-
-        return scalars, 1, basis, unpack
-    if T == 2:
-        scalars = []
-        for t in tabs:
-            t = jnp.asarray(t, jnp.float32)
-            scalars += [
-                t[0, 0].reshape(()),
-                (t[1, 0] - t[0, 0]).reshape(()),
-                (t[0, 1] - t[0, 0]).reshape(()),
-                (t[1, 1] - t[1, 0] - t[0, 1] + t[0, 0]).reshape(()),
-            ]
-
-        def basis(ti, tj):
-            return (ti, tj, ti * tj)
-
-        def unpack(svals, off, b):
-            ti, tj, tij = b
-            return (
-                svals[off]
-                + svals[off + 1] * ti
-                + svals[off + 2] * tj
-                + svals[off + 3] * tij
-            )
-
-        return scalars, 4, basis, unpack
-
-    scalars = []
-    for t in tabs:
-        t = jnp.asarray(t, jnp.float32)
-        scalars += [
-            t[a, c].reshape(()) for a in range(T) for c in range(T)
-        ]
-
-    def basis(ti, tj):
-        oi = [jnp.where(ti == jnp.float32(a), 1.0, 0.0) for a in range(T)]
-        oj = [jnp.where(tj == jnp.float32(c), 1.0, 0.0) for c in range(T)]
-        return [oi[a] * oj[c] for a in range(T) for c in range(T)]
-
-    def unpack(svals, off, b):
-        acc = svals[off] * b[0]
-        for k in range(1, len(b)):
-            acc = acc + svals[off + k] * b[k]
-        return acc
-
-    return scalars, T * T, basis, unpack
-
-
-# widest type count the Pallas kernels reconstruct parameters for; past
-# this the T^2-per-table one-hot cost approaches the XLA scan's and the
-# scalar channel bloats (n_tables * T^2 SMEM values)
-_PALLAS_MAX_T = 4
 
 
 def _i_views(dense: State, spec: GridSpec):
@@ -1135,30 +1033,6 @@ def dense_pair_force(
     # Newton half-stencil: each unordered pair is evaluated once and the
     # force/energy/virial are scattered to both members (the j side in the
     # rolled frame, un-rolled with the positive offset after the scan).
-    #
-    # Hot case (<= 4 particle types): hand off to the Pallas kernel,
-    # which evaluates both Newton sides in one VMEM-resident pass
-    # (ops/pallas_pair.py); multi-type parameters are reconstructed
-    # from the typeid planes (_table_scalars). want="all" adds energy +
-    # virial outputs (the observable pull path); xplor smoothing is
-    # applied inside the evaluator closure. Masked (tilted-box) grids
-    # carry validity planes — the stencil shifts themselves are already
-    # triclinic-aware (_axis_shift_tables).
-    # cap % 8: the kernel's j-subtile height must divide every J segment
-    # (segments are multiples of cap_pad); odd caps take the XLA path
-    if (
-        want in ("force", "all") and T <= _PALLAS_MAX_T
-        and spec.cap % 8 == 0 and jb.preshifted
-    ):
-        from . import pallas_pair as PP
-
-        pmode = PP.pallas_mode()
-        if pmode is not None:
-            return _pallas_half_pair_force(
-                energy_force_fn, dense, jb, spec, tables, r_cut_table,
-                r_on_table=r_on_table, mode=mode, want=want, masked=masked,
-                interpret=(pmode == "interpret"),
-            )
     C, cap = spec.n_cells, spec.cap
     Dx, Dy, Dz = spec.dims
     offsets = spec.half_stencil()
@@ -1234,460 +1108,6 @@ def dense_pair_force(
 
     total = tuple(carry[i] + jacc[..., i] for i in range(n_acc))
     return _finish_pair(total, spec.S)
-
-
-def _stencil_rows_t(comp_t, spec: GridSpec, offsets, axis_shifts,
-                    cap_pad: int | None = None, fill: float = 0.0):
-    """Cell-minor stencil rows: [cap, C] component -> [n_seg*cap_pad, C].
-
-    Row blocks: the self cell first, then each half-stencil offset's
-    occupants, pre-shifted via the halo pad. Built natively in the
-    kernel's cell-minor layout so no per-offset transposes are needed.
-    When ``cap_pad > cap`` each block is padded to cap_pad rows with
-    ``fill`` (far sentinel for x, 0 elsewhere) so the kernel's j-subtiles
-    tile every offset block evenly; padded rows interact with nothing.
-    """
-    cap = spec.cap
-    Dx, Dy, Dz = spec.dims
-    g = comp_t.reshape(cap, Dx, Dy, Dz)
-    for ax in range(3):
-        s = axis_shifts[ax] if axis_shifts is not None else None
-        g = _halo_pad(g, ax + 1, s)
-    blocks = [comp_t]
-    for o in offsets:
-        o0, o1, o2 = int(o[0]) + 1, int(o[1]) + 1, int(o[2]) + 1
-        b = jax.lax.slice(
-            g, (0, o0, o1, o2), (cap, o0 + Dx, o1 + Dy, o2 + Dz)
-        )
-        blocks.append(b.reshape(cap, spec.n_cells))
-    if cap_pad is not None and cap_pad != cap:
-        pad = jnp.full((cap_pad - cap, spec.n_cells), fill, comp_t.dtype)
-        blocks = [jnp.concatenate([b, pad], axis=0) for b in blocks]
-    return jnp.concatenate(blocks, axis=0)
-
-
-def _cell_counts(dense: State, spec: GridSpec):
-    """[C] int32 occupancy per cell (slots fill front-to-back at rebin)."""
-    return jnp.sum(
-        (dense.tag >= 0).reshape(spec.n_cells, spec.cap),
-        axis=1, dtype=jnp.int32,
-    )
-
-
-def choose_subtile_h(counts, spec: GridSpec, cell_block: int | None = None):
-    """Pick the Pallas j-subtile height from the occupancy block structure.
-
-    The kernel skips a j-subtile of a stencil-offset block only when the
-    whole CB-cell lane block has occupancy at or below the subtile's
-    first row (``jbound`` test in ops/pallas_pair.py), so H is the
-    work-skipping quantum and the right H depends on how occupancy
-    clusters across lane blocks — not on cap alone. A droplet's vapor
-    region is contiguous in cell-id order (whole blocks skippable: small
-    H wins); a homogeneous melt has mid-range occupancy in every block
-    (no skips: per-subtile fixed costs favor large H).
-
-    Exact structural counts per candidate H (scripts/model_subtile_h.py,
-    chip-calibrated 2026-08-20 — see BENCH.md "Occupancy-model subtile
-    choice"):
-
-      W(H) = sum_{blk,off} ceil(jb/H)*H * 8*n_igroups(blk)  pair-eval rows
-      G(H) = sum_{blk,off} ceil(jb/H) * n_igroups(blk)      i-group entries
-      P(H) = n_seg * pad_cap(cap, H) * C                    J elements built
-
-    modeled step cost ~ W + _SUBTILE_FIXED_ROWS*G + _PAD_TRAFFIC_ROWS*P:
-    each i-group entry inside an executed subtile pays a fixed cost
-    (x/y/z i-plane loads, accumulator select/update) equivalent to
-    ~_SUBTILE_FIXED_ROWS evaluated rows, and every padded J row costs
-    per-step stencil-block build traffic OUTSIDE the kernel
-    (_stencil_rows_t runs every force call) worth ~_PAD_TRAFFIC_ROWS
-    rows per element. Chip anchors (2026-08-20): the headline pins the
-    G coefficient (W and P flat across H at occ 37-45: measured
-    H16->H24 -0.041 ms against dG = -0.6k entries); droplet-H24 840.6
-    vs H8 958.8 TPS pins P from below (pad 32->48 swamps the G saving),
-    polymer-H16 585.3 vs H8 570.8 from above, dpd-H16 1038.5 vs H8
-    1069.8 tightens the lower bound. Minimizing reproduces all five
-    measured preferences (droplet H8, polymer H16, headline H24,
-    dpd H8, patchy H8).
-
-    Called once at tune time (host-side numpy); the choice lands in
-    ``GridSpec.subtile`` (static), so it costs one recompile with the
-    tune's own.
-    """
-    cap, C = spec.cap, spec.n_cells
-    CB = cell_block or int(os.environ.get("AZTPU_CELL_BLOCK", "0")) or (
-        256 if C >= 1024 else 128
-    )
-    offsets = spec.half_stencil()
-    cnt = np.asarray(counts, dtype=np.int64)
-    stc = np.asarray(
-        _stencil_counts(jnp.asarray(cnt, jnp.int32), spec, offsets)
-    ).astype(np.int64)
-    Cp = ((C + CB - 1) // CB) * CB
-    cnt = np.pad(cnt, (0, Cp - C))
-    stc = np.pad(stc, ((0, 0), (0, Cp - C)))
-    n_blocks = Cp // CB
-    ib = cnt.reshape(n_blocks, CB).max(axis=1)
-    jb = stc.reshape(stc.shape[0], n_blocks, CB).max(axis=2)
-    n_ig = np.minimum((ib + 7) // 8, (cap + 7) // 8)
-
-    n_seg = len(offsets) + 1
-
-    def cost(H):
-        nt = -(-jb // H)  # executed subtiles per (offset, block)
-        w = (nt * H * 8 * n_ig[None, :]).sum()
-        g = (nt * n_ig[None, :]).sum()
-        pad = ((cap + H - 1) // H) * H
-        return float(
-            w + _SUBTILE_FIXED_ROWS * g + _PAD_TRAFFIC_ROWS * n_seg * pad * C
-        )
-
-    # ties resolve to the smallest H (finest skip quantum)
-    return min((8, 16, 24), key=cost)
-
-
-# fixed cost of one i-group entry inside an executed j-subtile, in
-# evaluated-row equivalents; and per-step J-block build traffic per
-# padded element, same units (chip fit, scripts/model_subtile_h.py +
-# the five measured anchors in BENCH.md "Occupancy-model subtile
-# choice" — feasible region over all five anchors: FIXED in [30.5, 40],
-# PAD in [0.032, 0.060]; shipped values are the centroid)
-_SUBTILE_FIXED_ROWS = 37.0
-_PAD_TRAFFIC_ROWS = 0.044
-
-
-def _stencil_counts(counts, spec: GridSpec, offsets):
-    """[1 + n_offsets, C] occupancy of each stencil offset's neighbor cell."""
-    Dx, Dy, Dz = spec.dims
-    g = counts.reshape(Dx, Dy, Dz)
-    for ax in range(3):
-        g = _halo_pad(g, ax, None)
-    blocks = [counts]
-    for o in offsets:
-        o0, o1, o2 = int(o[0]) + 1, int(o[1]) + 1, int(o[2]) + 1
-        b = jax.lax.slice(g, (o0, o1, o2), (o0 + Dx, o1 + Dy, o2 + Dz))
-        blocks.append(b.reshape(spec.n_cells))
-    return jnp.stack(blocks, axis=0)
-
-
-def _roll_cells_t(a, spec: GridSpec, shift):
-    """Transposed-frame un-roll: a [cap, Dx, Dy, Dz], cell axes 1..3."""
-    Dx, Dy, Dz = spec.dims
-    g = a
-    for ax in range(3):
-        g = _halo_pad(g, ax + 1, None)
-    s = tuple(1 - int(shift[k]) for k in range(3))
-    return jax.lax.slice(
-        g, (0,) + s, (a.shape[0], s[0] + Dx, s[1] + Dy, s[2] + Dz)
-    )
-
-
-def _pallas_half_pair_force(
-    energy_force_fn, dense: State, jb: JBlocks, spec: GridSpec,
-    tables: dict, r_cut_table, r_on_table=None, mode: str = "none",
-    want: str = "force", masked: bool = False, interpret: bool = False,
-):
-    """Half-stencil maskless pair force via the Pallas kernel (T <= 4).
-
-    Physics identical to the XLA half-stencil branch of dense_pair_force;
-    only the execution schedule differs (see ops/pallas_pair.py). The
-    whole pipeline runs in the kernel's cell-minor [rows, C] frame: three
-    input transposes, three output transposes, nothing per-offset.
-    (``jb`` is ignored — stencil rows are rebuilt transposed.)
-
-    Multi-type parameters are reconstructed arithmetically from the f32
-    typeid planes instead of gathered (TPU vectors cannot gather): exact
-    bilinear interpolation for T == 2, exact one-hot contraction for
-    T in (3, 4) — see _table_scalars. Empty slots carry typeid -1; the
-    reconstructed parameters are garbage/zero there, but the sentinel
-    coordinates put rsq beyond every finite cutoff, so the contribution
-    is exactly zero.
-    """
-    from . import pallas_pair as PP
-    from .pair_force import ForceResult
-
-    C, cap = spec.n_cells, spec.cap
-    offsets = spec.half_stencil()
-    n_seg = len(offsets) + 1
-    cap_pad = PP.pad_cap(cap, spec.subtile)
-    T = r_cut_table.shape[0]
-    keys = sorted(tables)
-    nk = len(keys)
-    rcutsq_t = r_cut_table * r_cut_table
-    need_ecut = (want == "all" and mode == "shift") or mode == "xplor"
-    need_ron = mode == "xplor"
-    if need_ecut:
-        ecut_t, _ = energy_force_fn(
-            jnp.where(rcutsq_t > 0, rcutsq_t, 4.0), rcutsq_t, tables
-        )
-    if need_ron:
-        ronsq_t = r_on_table * r_on_table
-
-    tab_list = [tables[k] for k in keys] + [rcutsq_t]
-    if need_ecut:
-        tab_list.append(ecut_t)
-    if need_ron:
-        tab_list.append(ronsq_t)
-    scalars, stride, basis_fn, unpack_one = _table_scalars(tab_list, T)
-
-    def unpack(svals, ei, ej):
-        b = basis_fn(ei[0], ej[0]) if T > 1 else None
-        vals = [
-            unpack_one(svals, i * stride, b) for i in range(len(tab_list))
-        ]
-        p = dict(zip(keys, vals))
-        o = nk + 1
-        ec = ron = None
-        if need_ecut:
-            ec = vals[o]
-            o += 1
-        if need_ron:
-            ron = vals[o]
-        return p, vals[nk], ec, ron
-
-    # masked (tilted) grids: validity plane after the typeid plane. It is
-    # folded into rsq BEFORE the evaluator (invalid pairs see a far
-    # distance): this kills the one case sentinels cannot (empty-empty
-    # false pairs when tilt shifts exceed the sentinel spacing) without
-    # an inf * 0 hazard from evaluating at a false near-zero separation.
-    iv = 1 if T > 1 else 0
-
-    def mask_rsq(rsq, ei, ej):
-        if not masked:
-            return rsq
-        return jnp.where(ei[iv] * ej[iv] > 0.5, rsq, jnp.float32(1.0e30))
-
-    fast = getattr(energy_force_fn, "pallas_force_divr", None)
-    if want == "force" and fast is not None and mode != "xplor":
-        recip = (lambda x: 1.0 / x) if interpret else PP.approx_recip
-
-        def eval_f(dx, dy, dz, rsq, ei, ej, svals):
-            rsq = mask_rsq(rsq, ei, ej)
-            p, rcs, _, _ = unpack(svals, ei, ej)
-            f = jnp.where(rsq < rcs, fast(rsq, p, recip), 0.0)
-            fx, fy, fz = f * dx, f * dy, f * dz
-            return [fx, fy, fz], [-fx, -fy, -fz]
-    else:
-        from .pair_force import _xplor_smooth
-
-        def eval_f(dx, dy, dz, rsq, ei, ej, svals):
-            rsq = mask_rsq(rsq, ei, ej)
-            p, rcs, ec, ronsq = unpack(svals, ei, ej)
-            e, f = energy_force_fn(rsq, rcs, p)
-            if mode == "xplor":
-                # smooth when r_on < rcut, plain energy shift otherwise
-                # (HOOMD xplor semantics, see _eval_pair_mode)
-                smooth = ronsq < rcs
-                e_s, f_s = _xplor_smooth(e, f, rsq, rcs, ronsq)
-                e = jnp.where(smooth, e_s, e - ec)
-                f = jnp.where(smooth, f_s, f)
-            elif ec is not None:
-                e = e - ec
-            inside = rsq < rcs
-            f = jnp.where(inside, f, 0.0)
-            fx, fy, fz = f * dx, f * dy, f * dz
-            if want == "force":
-                return [fx, fy, fz], [-fx, -fy, -fz]
-            e = jnp.where(inside, e, 0.0)
-            w = 0.5 * f
-            he = 0.5 * e
-            vir = [w * dx * dx, w * dx * dy, w * dx * dz,
-                   w * dy * dy, w * dy * dz, w * dz * dz]
-            return [fx, fy, fz, he, *vir], [-fx, -fy, -fz, he, *vir]
-
-    shifts = _axis_shift_tables(dense.box) if jb.preshifted else (None,) * 3
-    its = [dense.position[:, k].reshape(C, cap).T for k in range(3)]
-    fills = (-PP._SENTINEL, 0.0, 0.0)
-    jts = [
-        _stencil_rows_t(c, spec, offsets, s, cap_pad=cap_pad, fill=f)
-        for c, s, f in zip(its, shifts, fills)
-    ]
-    planes = []
-    fills_e = []
-    if T > 1:
-        planes.append(dense.typeid.astype(jnp.float32).reshape(C, cap).T)
-        fills_e.append(-1.0)
-    if masked:
-        planes.append(
-            (dense.tag >= 0).astype(jnp.float32).reshape(C, cap).T
-        )
-        fills_e.append(0.0)
-    extra_i = tuple(planes)
-    extra_j = tuple(
-        _stencil_rows_t(v, spec, offsets, None, cap_pad=cap_pad, fill=fv)
-        for v, fv in zip(planes, fills_e)
-    )
-    counts = _cell_counts(dense, spec)
-    stc = _stencil_counts(counts, spec, offsets)
-    # 256-lane blocks measured ~10% faster than 128 at the 64k shapes
-    # (fewer grid programs, same VMEM fit via J segmentation); small grids
-    # keep 128 so the occupancy bounds stay tight. AZTPU_CELL_BLOCK forces
-    # a width (tests/tuning).
-    cb = int(os.environ.get("AZTPU_CELL_BLOCK", "0")) or (
-        256 if C >= 1024 else 128
-    )
-    fi, fj = PP.stencil_pair_force_kernel(
-        eval_f, scalars, *its, *jts, counts, stc,
-        cap_pad=cap_pad, extra_i=extra_i, extra_j=extra_j,
-        n_acc=_n_acc(want), cell_block=cb, interpret=interpret, subtile=spec.subtile,
-    )
-
-    Dx, Dy, Dz = spec.dims
-    n_acc = _n_acc(want)
-    cols = []
-    for k3 in range(n_acc):
-        g = fj[k3].reshape(n_seg, cap_pad, Dx, Dy, Dz)[:, :cap]
-        acc = g[0]  # self cell: already in its true cell
-        for k, o in enumerate(offsets):
-            acc = acc + _roll_cells_t(g[k + 1], spec, o)
-        total = fi[k3] + acc.reshape(cap, C)
-        cols.append(total.T.reshape(C * cap))
-    force = jnp.stack(cols[:3], axis=-1)
-    if want == "force":
-        return ForceResult(force=force, energy=None, virial=None)
-    return ForceResult(
-        force=force, energy=cols[3], virial=jnp.stack(cols[4:10], axis=-1)
-    )
-
-
-def _pallas_half_dpd_force(
-    dense: State, jb: JBlocks, spec: GridSpec, tables: dict, r_cut_table,
-    kT, dt, seed: int, timestep, masked: bool = False,
-    interpret: bool = False,
-):
-    """Maskless DPD force via the Pallas stencil kernel (T <= 4).
-
-    The full DPD triple — conservative, drag, and the pair-symmetric
-    random force — evaluated once per unordered pair with the Threefry
-    counter RNG traced INTO the Mosaic kernel body (straight-line uint32
-    VPU math; reference per-pair RNG contract:
-    /root/reference/src/DPDPairEvaluatorGeneralWeight.h:213-231). Noise
-    is keyed on sorted true tags, so it is bitwise identical to the XLA
-    paths and independent of the stencil/kernel schedule. The traced
-    ``timestep`` rides the SMEM scalar channel as two exact f32 halves
-    (a raw uint32 above 2^24 would not survive the f32 channel).
-    """
-    from . import pallas_pair as PP
-    from .pair_force import ForceResult
-
-    C, cap = spec.n_cells, spec.cap
-    offsets = spec.half_stencil()
-    n_seg = len(offsets) + 1
-    cap_pad = PP.pad_cap(cap, spec.subtile)
-
-    T = r_cut_table.shape[0]
-    kT_f = jnp.float32(kT)
-    dt_f = jnp.float32(dt)
-    sigma_t = jnp.where(
-        dt_f > 0,
-        jnp.sqrt(6.0 * tables["gamma"] * kT_f / jnp.maximum(dt_f, 1e-20)),
-        0.0,
-    )
-    t_u = jnp.asarray(timestep, jnp.uint32)
-    k1_hi = (t_u >> jnp.uint32(16)).astype(jnp.float32)
-    k1_lo = (t_u & jnp.uint32(0xFFFF)).astype(jnp.float32)
-    k0 = float((int(_rng.Stream.DPD_GENERAL_WEIGHT) << 16) ^ (int(seed) & 0xFFFF))
-    ptabs = [tables["A"], tables["gamma"], tables["s"], r_cut_table, sigma_t]
-    # typeid-plane interpolation (bilinear for T == 2, exact one-hot for
-    # T >= 3): see _table_scalars
-    scalars, stride, basis_fn, unpack_one = _table_scalars(ptabs, T)
-
-    def params_of(svals, ei, ej):
-        b = basis_fn(ei[4], ej[4]) if T > 1 else None
-        return [unpack_one(svals, i * stride, b) for i in range(5)]
-
-    scalars += [jnp.float32(k0), k1_hi, k1_lo]
-
-    def eval_f(dx, dy, dz, rsq, ei, ej, svals):
-        vxi, vyi, vzi, tgi = ei[:4]
-        vxj, vyj, vzj, tgj = ej[:4]
-        if masked:
-            # validity plane is the LAST extra; fold into rsq (see
-            # _pallas_half_pair_force)
-            rsq = jnp.where(
-                ei[-1] * ej[-1] > 0.5, rsq, jnp.float32(1.0e30)
-            )
-        A, gamma, s_exp, rcut, sig = params_of(svals, ei, ej)
-        k0f, hi16, lo16 = svals[-3:]
-        rcutsq = rcut * rcut
-        inside = rsq < rcutsq
-        rsq_safe = jnp.where(inside, rsq, 1.0)
-        rinv = jax.lax.rsqrt(rsq_safe)
-        r = rsq_safe * rinv
-        rcutinv = 1.0 / rcut
-        f_cons = A * (rinv - rcutinv)
-        rdotv = dx * (vxi - vxj) + dy * (vyi - vyj) + dz * (vzi - vzj)
-        w_R = jnp.maximum(1.0 - r * rcutinv, 0.0) ** (0.5 * s_exp) * rinv
-        f_drag = -gamma * w_R * w_R * rdotv
-        # sort the tag pair in f32: tags arrive as f32 planes (exact for
-        # N < 2^24) and Mosaic cannot legalize vector arith.minui, so the
-        # uint32 min/max form fails to compile on TPU
-        lo = jnp.minimum(tgi, tgj).astype(jnp.int32).astype(jnp.uint32)
-        hi = jnp.maximum(tgi, tgj).astype(jnp.int32).astype(jnp.uint32)
-        # svals arrive as Python floats (folded constants) or f32 SMEM
-        # scalars (traced timestep); coerce either to exact uint32.
-        # Route through int32: Mosaic cannot lower f32 -> uint32, and all
-        # three words are < 2^24 so the f32 -> int32 leg is exact (the
-        # int32 -> uint32 leg is a bitcast).
-        def _u32(v):
-            return (
-                jnp.asarray(v, jnp.float32)
-                .astype(jnp.int32)
-                .astype(jnp.uint32)
-            )
-
-        k0u = _u32(k0f)
-        k1u = (_u32(hi16) << jnp.uint32(16)) | _u32(lo16)
-        x0, _ = _rng.threefry2x32(k0u, k1u, lo, hi, rounds=_rng.FAST_ROUNDS)
-        alpha = _rng.uniform_from_bits(x0)
-        f = jnp.where(inside, f_cons + f_drag + sig * w_R * alpha, 0.0)
-        fx, fy, fz = f * dx, f * dy, f * dz
-        return [fx, fy, fz], [-fx, -fy, -fz]
-
-    shifts = _axis_shift_tables(dense.box) if jb.preshifted else (None,) * 3
-    its = [dense.position[:, k].reshape(C, cap).T for k in range(3)]
-    fills = (-PP._SENTINEL, 0.0, 0.0)
-    jts = [
-        _stencil_rows_t(c, spec, offsets, s, cap_pad=cap_pad, fill=f)
-        for c, s, f in zip(its, shifts, fills)
-    ]
-    vts = [dense.velocity[:, k].reshape(C, cap).T for k in range(3)]
-    tag_f = dense.tag.astype(jnp.float32).reshape(C, cap).T
-    planes = [*vts, tag_f]
-    fills_e = [0.0, 0.0, 0.0, -1.0]
-    if T > 1:
-        planes.append(dense.typeid.astype(jnp.float32).reshape(C, cap).T)
-        fills_e.append(-1.0)
-    if masked:
-        planes.append((dense.tag >= 0).astype(jnp.float32).reshape(C, cap).T)
-        fills_e.append(0.0)
-    extra_i = tuple(planes)
-    extra_j = tuple(
-        _stencil_rows_t(v, spec, offsets, None, cap_pad=cap_pad, fill=fv)
-        for v, fv in zip(planes, fills_e)
-    )
-    counts = _cell_counts(dense, spec)
-    stc = _stencil_counts(counts, spec, offsets)
-    cb = int(os.environ.get("AZTPU_CELL_BLOCK", "0")) or (
-        256 if C >= 1024 else 128
-    )
-    fi, fj = PP.stencil_pair_force_kernel(
-        eval_f, scalars, *its, *jts, counts, stc,
-        cap_pad=cap_pad, extra_i=extra_i, extra_j=extra_j, n_acc=3,
-        cell_block=cb, interpret=interpret, subtile=spec.subtile,
-    )
-
-    Dx, Dy, Dz = spec.dims
-    force = []
-    for k3 in range(3):
-        g = fj[k3].reshape(n_seg, cap_pad, Dx, Dy, Dz)[:, :cap]
-        acc = g[0]
-        for k, o in enumerate(offsets):
-            acc = acc + _roll_cells_t(g[k + 1], spec, o)
-        total = fi[k3] + acc.reshape(cap, C)
-        force.append(total.T.reshape(C * cap))
-    return ForceResult(
-        force=jnp.stack(force, axis=-1), energy=None, virial=None
-    )
 
 
 def dense_dpd_force(
@@ -1809,24 +1229,6 @@ def dense_dpd_force(
 
     # Newton half-stencil: evaluate each unordered pair once, scatter the
     # force to both members (j side in the rolled frame, un-rolled after)
-    #
-    # Hot case (force-only, <= 4 types): Pallas kernel with the per-pair
-    # Threefry traced into the Mosaic body (SURVEY §7 hard part #3 — the
-    # RNG is the dominant per-pair cost and runs on the VPU's integer
-    # lanes). Tags must be f32-exact (< 2^24); masked (tilted) grids add
-    # a validity plane.
-    if (
-        want == "force" and T <= _PALLAS_MAX_T and spec.cap % 8 == 0
-        and dense.N < (1 << 24) and jb.preshifted
-    ):
-        from . import pallas_pair as PP
-
-        pmode = PP.pallas_mode()
-        if pmode is not None:
-            return _pallas_half_dpd_force(
-                dense, jb, spec, tables, r_cut_table, kT, dt, seed,
-                timestep, masked=masked, interpret=(pmode == "interpret"),
-            )
     C, cap = spec.n_cells, spec.cap
     Dx, Dy, Dz = spec.dims
     offsets = spec.half_stencil()
@@ -1909,111 +1311,6 @@ def dense_dpd_force(
         jacc = jacc + _roll_cells(g[k], spec, o).reshape(C, cap, n_acc)
     total = tuple(carry[i] + jacc[..., i] for i in range(n_acc))
     return finish(total)
-
-
-def _pallas_half_aniso_force(
-    energy_force_torque_fn, dense: State, jb: JBlocks, spec: GridSpec,
-    tables: dict, r_cut_table, mode: str, masked: bool = False,
-    interpret: bool = False,
-):
-    """Maskless aniso force+torque via the Pallas kernel (T <= 4).
-
-    n_acc = 6: force x/y/z on each Newton side (j gets -f) plus each
-    side's OWN torque from the evaluator (torques are not antisymmetric;
-    reference AnisoPairEvaluatorTwoPatchMorse.h:179-192). Quaternions
-    ride the generic extra-plane channel (4 per side), followed by the
-    typeid plane when T > 1 (parameters reconstructed per
-    _table_scalars) and the validity plane on masked grids.
-    """
-    from . import pallas_pair as PP
-    from .pair_force import ForceResult
-
-    C, cap = spec.n_cells, spec.cap
-    offsets = spec.half_stencil()
-    n_seg = len(offsets) + 1
-    cap_pad = PP.pad_cap(cap, spec.subtile)
-    T = r_cut_table.shape[0]
-    keys = sorted(tables)
-    nk = len(keys)
-    rcutsq_t = r_cut_table * r_cut_table
-    tab_list = [tables[k] for k in keys] + [rcutsq_t]
-    scalars, stride, basis_fn, unpack_one = _table_scalars(tab_list, T)
-    shift = mode == "shift"
-
-    def eval_f(dx, dy, dz, rsq, ei, ej, svals):
-        # extra planes: 4 quaternions [+ typeid if T > 1] [+ validity]
-        b = basis_fn(ei[4], ej[4]) if T > 1 else None
-        vals = [unpack_one(svals, i * stride, b) for i in range(nk + 1)]
-        p = {
-            k: jnp.asarray(v, jnp.float32) for k, v in zip(keys, vals)
-        }
-        rcs = jnp.asarray(vals[nk], jnp.float32)
-        if masked:
-            # validity plane is always the LAST extra
-            rsq = jnp.where(
-                ei[-1] * ej[-1] > 0.5, rsq, jnp.float32(1.0e30)
-            )
-        e, f, ti, tj = energy_force_torque_fn(
-            (dx, dy, dz), ei[:4], ej[:4], jnp.maximum(rcs, 1e-6), p, shift
-        )
-        inside = rsq < rcs
-        out_i, out_j = [], []
-        for k3 in range(3):
-            fk = jnp.where(inside, f[k3], 0.0)
-            out_i.append(fk)
-            out_j.append(-fk)
-        for k3 in range(3):
-            out_i.append(jnp.where(inside, ti[k3], 0.0))
-        for k3 in range(3):
-            out_j.append(jnp.where(inside, tj[k3], 0.0))
-        return out_i, out_j
-
-    shifts = _axis_shift_tables(dense.box) if jb.preshifted else (None,) * 3
-    its = [dense.position[:, k].reshape(C, cap).T for k in range(3)]
-    fills = (-PP._SENTINEL, 0.0, 0.0)
-    jts = [
-        _stencil_rows_t(c, spec, offsets, s, cap_pad=cap_pad, fill=f)
-        for c, s, f in zip(its, shifts, fills)
-    ]
-    qts = [dense.orientation[:, k].reshape(C, cap).T for k in range(4)]
-    qfills = [1.0, 0.0, 0.0, 0.0]
-    if T > 1:
-        qts.append(dense.typeid.astype(jnp.float32).reshape(C, cap).T)
-        qfills.append(-1.0)
-    if masked:
-        qts.append((dense.tag >= 0).astype(jnp.float32).reshape(C, cap).T)
-        qfills.append(0.0)
-    extra_i = tuple(qts)
-    extra_j = tuple(
-        _stencil_rows_t(q, spec, offsets, None, cap_pad=cap_pad, fill=fq)
-        for q, fq in zip(qts, qfills)
-    )
-    counts = _cell_counts(dense, spec)
-    stc = _stencil_counts(counts, spec, offsets)
-    cb = int(os.environ.get("AZTPU_CELL_BLOCK", "0")) or (
-        256 if C >= 1024 else 128
-    )
-    fi, fj = PP.stencil_pair_force_kernel(
-        eval_f, scalars, *its, *jts, counts, stc,
-        cap_pad=cap_pad, extra_i=extra_i, extra_j=extra_j, n_acc=6,
-        cell_block=cb, interpret=interpret, subtile=spec.subtile,
-    )
-
-    Dx, Dy, Dz = spec.dims
-    cols = []
-    for k3 in range(6):
-        g = fj[k3].reshape(n_seg, cap_pad, Dx, Dy, Dz)[:, :cap]
-        acc = g[0]
-        for k, o in enumerate(offsets):
-            acc = acc + _roll_cells_t(g[k + 1], spec, o)
-        total = fi[k3] + acc.reshape(cap, C)
-        cols.append(total.T.reshape(C * cap))
-    return ForceResult(
-        force=jnp.stack(cols[:3], axis=-1),
-        energy=None,
-        virial=None,
-        torque=jnp.stack(cols[3:6], axis=-1),
-    )
 
 
 def dense_aniso_force(
@@ -2117,23 +1414,6 @@ def dense_aniso_force(
         return finish(carry)
 
     # Newton half-stencil
-    #
-    # Hot case (force+torque, one type): Pallas kernel with the
-    # quaternion patch math traced into the Mosaic body; masked (tilted)
-    # grids add a validity plane
-    if (
-        want == "force" and T <= _PALLAS_MAX_T and mode != "xplor"
-        and spec.cap % 8 == 0 and jb.preshifted
-    ):
-        from . import pallas_pair as PP
-
-        pmode = PP.pallas_mode()
-        if pmode is not None:
-            return _pallas_half_aniso_force(
-                energy_force_torque_fn, dense, jb, spec, tables,
-                r_cut_table, mode, masked=masked,
-                interpret=(pmode == "interpret"),
-            )
     C, cap = spec.n_cells, spec.cap
     Dx, Dy, Dz = spec.dims
     offsets = spec.half_stencil()

@@ -1,8 +1,8 @@
 """Anisotropic pair evaluators: force + energy + torques (componentwise).
 
-Rebuild of SURVEY §2.3. TPU layout rule: all pair-shaped values are
-separate [N, M] arrays per component (a trailing 3- or 4-axis would be
-padded to a 128-lane tile). Protocol:
+Rebuild of SURVEY §2.3. Layout rule: all pair-shaped values are
+separate [N, M] arrays per component (no trailing 3- or 4-axis).
+Protocol:
 
 ``(dxyz, quat_i, quat_j, rcutsq, params, energy_shift) ->
   (energy, force_xyz, torque_i_xyz, torque_j_xyz)``

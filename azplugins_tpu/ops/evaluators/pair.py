@@ -1,10 +1,10 @@
 """Isotropic pair potential evaluators as pure jnp functions.
 
-TPU-native rebuild of the reference evaluator layer (§2.1/2.2 of SURVEY):
+Rebuild of the reference evaluator layer (§2.1/2.2 of SURVEY):
 each potential is a stateless function ``(rsq, rcutsq, params) -> (energy,
 force_div_r)`` evaluated elementwise over the padded neighbor array by the
 generic force driver (ops/pair_force.py). No codegen: adding a potential is
-registering one function + a param spec (the TPU analog of the reference's
+registering one function + a param spec (the analog of the reference's
 CMake-stamped evaluator template instantiation, src/CMakeLists.txt:59-178).
 
 Branches in the reference C++ become ``jnp.where`` selections; cutoff and
@@ -77,23 +77,6 @@ def perturbed_lennard_jones(rsq, rcutsq, p):
     f = jnp.where(in_core, f, f * p["lam"])
     active = p["lj1"] != 0
     return jnp.where(active, e, 0.0), jnp.where(active, f, 0.0)
-
-
-def _plj_pallas_force_divr(rsq, p, recip):
-    """Force/r only, with a caller-supplied reciprocal (Pallas fast path).
-
-    Same algebra as :func:`perturbed_lennard_jones`'s force branch; the
-    exact f32 divide (the single most expensive VPU op in the kernel) is
-    replaced by the hardware approximate reciprocal + one Newton step.
-    """
-    r2inv = recip(rsq)
-    r6inv = r2inv * r2inv * r2inv
-    f = r2inv * r6inv * (12.0 * p["lj1"] * r6inv - 6.0 * p["lj2"])
-    f = jnp.where(rsq < p["rwcasq"], f, f * p["lam"])
-    return jnp.where(p["lj1"] != 0, f, 0.0)
-
-
-perturbed_lennard_jones.pallas_force_divr = _plj_pallas_force_divr
 
 
 # ---------------------------------------------------------------------------
@@ -279,16 +262,6 @@ def lennard_jones(rsq, rcutsq, p):
     e = r6inv * (p["lj1"] * r6inv - p["lj2"])
     active = p["lj1"] != 0
     return jnp.where(active, e, 0.0), jnp.where(active, f, 0.0)
-
-
-def _lj_pallas_force_divr(rsq, p, recip):
-    r2inv = recip(rsq)
-    r6inv = r2inv * r2inv * r2inv
-    f = r2inv * r6inv * (12.0 * p["lj1"] * r6inv - 6.0 * p["lj2"])
-    return jnp.where(p["lj1"] != 0, f, 0.0)
-
-
-lennard_jones.pallas_force_divr = _lj_pallas_force_divr
 
 
 def _morse_precompute(t: dict) -> dict:

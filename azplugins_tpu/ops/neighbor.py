@@ -1,4 +1,4 @@
-"""Cell list + Verlet neighbor list, TPU-style (static shapes, no atomics).
+"""Cell list + Verlet neighbor list (static shapes, no atomics).
 
 TEST-ORACLE ONLY: Simulation never dispatches this path — the production
 hot path is the dense cell-grid engine (ops/dense.py). This module and
@@ -11,7 +11,7 @@ tests src/pytest/test_pair.py:337). Design:
 
   * Binning is sort-based: argsort particles by cell id, rank-in-cell from a
     searchsorted prefix, scatter ids into a fixed-capacity ``[n_cells *
-    capacity]`` table. No atomics (TPU has none) — overflow is detected and
+    capacity]`` table. No atomics — overflow is detected and
     surfaced as a flag the host reacts to by growing capacity.
   * Candidates are gathered from the 27-cell stencil (per-axis collapsed for
     small boxes) and compacted into a padded ``[N, n_max]`` index array with
@@ -173,7 +173,7 @@ def build_neighbor_list(position: jnp.ndarray, box: Box, spec: NeighborSpec) -> 
     # occupants of all stencil cells: [N, S*cap]
     cand = table[(ncid[..., None] * cap + jnp.arange(cap, dtype=jnp.int32)).reshape(N, -1)]
 
-    # ---- distance filter (componentwise: no [.., 3] minor axis on TPU) -----
+    # ---- distance filter (componentwise: no [.., 3] minor axis) -----------
     j = jnp.minimum(cand, N - 1)
     px, py, pz = position[:, 0], position[:, 1], position[:, 2]
     dx = px[:, None] - px[j]

@@ -4,17 +4,15 @@ TEST-ORACLE ONLY (except ForceResult and the shared helpers): Simulation
 dispatches _compute_dense (ops/dense.py), never this driver — see
 ops/neighbor.py. Kept as the independent parity-test reference path.
 
-TPU rebuild of HOOMD's ``PotentialPair<Evaluator>`` /
+Rebuild of HOOMD's ``PotentialPair<Evaluator>`` /
 ``PotentialPairDPDThermo<Evaluator>`` drivers the reference instantiates
 (SURVEY §3.2). Instead of one CUDA thread per particle, the whole
 ``[N, n_max]`` neighbor array is evaluated as fused dense vector math: a
 full (two-sided) neighbor list makes the accumulation a row reduction —
-no scatter, no atomics, perfectly shaped for the VPU.
+no scatter, no atomics.
 
-TPU layout rule: every large pairwise intermediate is a separate [N, M]
-array per vector component. A trailing axis of 3 would be padded to a full
-128-lane tile by the (8, 128) tiling — a 42x memory blowup that OOMs at
-64k particles.
+Layout rule: every large pairwise intermediate is a separate [N, M]
+array per vector component, never one array with a trailing axis of 3.
 
 Shift-mode semantics mirror HOOMD: ``none``, ``shift`` (subtract V(rcut)),
 ``xplor`` (smooth S(r) between r_on and r_cut; falls back to shift when

@@ -3,7 +3,7 @@
 Strategy (round 1): *atom decomposition* — per-particle arrays are sharded
 along the particle axis of a 1-D mesh; positions needed for neighbor
 gathers are implicitly all-gathered by XLA's SPMD partitioner. Reductions
-(net momentum, histograms, evaporator counts) become ``psum`` over ICI —
+(net momentum, histograms, evaporator counts) become ``psum`` across devices —
 the direct analog of the reference's plugin-level MPI collectives
 (/root/reference/src/VelocityCompute.cc:50-63,
 /root/reference/src/ParticleEvaporator.cc:96-107). Spatial (halo-exchange)

@@ -1,6 +1,6 @@
 """Spatial domain decomposition: strip sharding + ppermute halo migration.
 
-Phase-2 distribution (SURVEY §2.12, VERDICT r1 item 9). The dense slot
+Phase-2 distribution (SURVEY §2.12). The dense slot
 layout is cell-major, so sharding the slot axis of a 1-D device mesh into
 contiguous blocks IS a spatial decomposition (slot =
 ((cx*Dy + cy)*Dz + cz)*cap + r): each device owns a contiguous run of
@@ -13,8 +13,8 @@ crosses block boundaries through XLA's partitioner (halo pads lower to
 collective permutes). What this module adds is a **local rebin**: instead
 of the global ``lax.sort`` over all S slots (an all-to-all at scale),
 each device re-bins only its own block and exchanges boundary-crossing
-particles with its ring neighbors via ``lax.ppermute`` over ICI — the
-TPU-native analog of HOOMD's MPI particle migration.
+particles with its ring neighbors via ``lax.ppermute`` — the
+analog of HOOMD's MPI particle migration.
 
 Correctness invariant: between rebuilds particles drift at most the
 Verlet margin (< one cell width), so a particle's destination cell is at

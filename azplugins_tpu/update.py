@@ -13,8 +13,8 @@ north star):
     a uniform random subset via a Fisher-Yates shuffle with replicated RNG;
     here the pick is a deterministic top-k over per-candidate counter-based
     random priorities (also a uniform subset without replacement, and
-    bitwise identical on any device count — same contract, TPU-native
-    static shapes instead of stream compaction).
+    bitwise identical on any device count — same contract, static
+    shapes instead of stream compaction).
 
 Both run inside the jitted step on their trigger schedule; retyping is a
 masked scatter, never a resize (the reference also retypes because HOOMD

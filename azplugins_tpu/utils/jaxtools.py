@@ -1,8 +1,8 @@
 """Small JAX utilities shared across the framework.
 
-TPU-first design notes: every piece of simulation state is an immutable
+Design notes: every piece of simulation state is an immutable
 pytree dataclass so the whole timestep can be traced once by ``jax.jit``
-and live entirely in HBM. (Replaces the reference's mutable C++
+and live entirely in device memory. (Replaces the reference's mutable C++
 ``ParticleData``/``GPUArray`` store, /root/reference: hoomd substrate used at
 src/TwoStepLangevinFlow.h:113-126.)
 """

@@ -1,7 +1,7 @@
 """Perturbed-LJ fluid, Langevin NVT: the quick-start example.
 
 Melts a simple-cubic lattice, logs temperature/energy, writes a
-trajectory. Runs on TPU or CPU.
+trajectory. Runs on the GPU or the CPU.
 """
 
 import os

@@ -1,5 +1,5 @@
 """Newton half-stencil vs full-stencil parity for the dense DPD and aniso
-drivers (VERDICT r1 item 5).
+drivers.
 
 The half form evaluates each unordered pair once and scatters both Newton
 sides; physics must match the full stencil to accumulation-order rounding.

@@ -1,4 +1,4 @@
-"""Smoke-run every example end-to-end (VERDICT r1 item 8).
+"""Smoke-run every example end-to-end.
 
 Each ``examples/*.py`` is executed with ``AZTPU_EXAMPLE_FAST=1`` (tiny
 system, short run) in a temp cwd. droplet_evaporation is the

@@ -1,7 +1,7 @@
 """Dense-path multi-type (T >= 3) parity vs the neighbor-list driver.
 
-VERDICT r1 weak #6: the dense _pair_params one-hot contraction unrolls
-O(T^2); nothing exercised T >= 3 on the dense path. This cross-checks a
+The dense _pair_params one-hot contraction unrolls O(T^2); nothing
+exercised T >= 3 on the dense path. This cross-checks a
 3-type mixture (distinct epsilon/sigma/r_cut per pair, one pair disabled
 via r_cut=0) through both the dense half/full stencils and the padded
 neighbor-list driver.

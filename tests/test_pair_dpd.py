@@ -1,7 +1,7 @@
 """DPD thermostat tests: statistical temperature + pair-reproducible noise.
 
 Replicates the reference statistical test
-(/root/reference/src/pytest/test_pair_dpd.py:13-46) and adds the TPU
+(/root/reference/src/pytest/test_pair_dpd.py:13-46) and adds this
 engine's bitwise-reproducibility contract.
 """
 

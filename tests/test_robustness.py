@@ -217,8 +217,8 @@ def test_divergence_raises_clean_error():
 
     Near-overlapping pairs under a steep LJ produce inf forces -> NaN
     positions; the rebin then piles every NaN particle into one cell and
-    the overflow grow would request capacity ~ N, which on TPU ends in an
-    unintelligible Mosaic VMEM OOM. The engine detects the non-finite
+    the overflow grow would request capacity ~ N, which ends in an
+    unintelligible compiler out-of-memory error. The engine detects the non-finite
     state at the first overflow and raises RuntimeError instead.
     """
     rng = np.random.default_rng(0)

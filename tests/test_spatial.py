@@ -3,8 +3,7 @@
 The spatial rebin (parallel/spatial.py) must produce a BITWISE-identical
 slot layout to ops.dense.rebin — the local fused sort keys on
 (cell, global input row), the same order the global sort uses — so
-trajectories cannot depend on which rebin path ran (VERDICT r1 item 9,
-SURVEY §2.12).
+trajectories cannot depend on which rebin path ran (SURVEY §2.12).
 """
 
 import jax
@@ -469,7 +468,7 @@ def _tilted_system(N=700, seed=4, tilt=(0.2, 0.0, 0.1)):
 @pytest.mark.parametrize("drift", [0.0, 0.5])
 def test_spatial_rebin_triclinic_bitwise(drift):
     """A tilted box through spatial_rebin under a 4-device mesh matches
-    the global rebin bitwise (VERDICT r3 item 8: the spatial path's
+    the global rebin bitwise (the spatial path's
     cell-id/key logic is tilt-agnostic — prove it, don't assume it)."""
     dense, meta, spec, N = _tilted_system()
     if drift:

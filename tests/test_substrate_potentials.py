@@ -206,46 +206,3 @@ def test_fenewca_bond_sim_attracts(
     sim.run(40)
     p1 = sim.state.get_snapshot().particles.position
     assert np.linalg.norm(p1[0] - p1[1]) < np.linalg.norm(p0[0] - p0[1])
-
-
-def test_lj_pallas_interpret_parity(lattice_snapshot_factory):
-    """LJ rides the generic Pallas pair kernel (interpret mode on CPU):
-    forces match the XLA scan path."""
-    import os
-
-    from azplugins_tpu.core.state import state_from_snapshot
-    from azplugins_tpu.ops import dense as D
-
-    snap = lattice_snapshot_factory(n=6, a=1.1)
-    rng = np.random.default_rng(2)
-    snap.particles.position[:] += rng.normal(0, 0.05, (snap.particles.N, 3))
-    state, _, _ = state_from_snapshot(snap)
-    spec = D.GridSpec.create(state.box, state.N, r_cut=2.5, buffer=0.4)
-    occ = az.Simulation._max_occupancy_cap(state, spec)
-    if occ > spec.cap:
-        spec = spec.replace(cap=occ)
-    dense, meta = D.densify(state, spec)
-    assert not bool(meta.overflow)
-    d = PAIR_POTENTIALS["LJ"]
-    tbl = {
-        k: jnp.full((1, 1), float(v), jnp.float32)
-        for k, v in d.precompute(dict(epsilon=1.0, sigma=1.0)).items()
-    }
-    rc = jnp.full((1, 1), 2.5, jnp.float32)
-
-    def run(flag):
-        os.environ["AZTPU_PALLAS"] = flag
-        try:
-            jb = D.make_jblocks(dense, spec, half=True, need_typeid=False)
-            return D.dense_pair_force(
-                d.energy_force, dense, jb, spec, tbl, rc,
-                mode="none", want="force", masked=False,
-            )
-        finally:
-            os.environ.pop("AZTPU_PALLAS", None)
-
-    ref = run("0")
-    got = run("1")
-    np.testing.assert_allclose(
-        np.asarray(got.force), np.asarray(ref.force), rtol=2e-4, atol=2e-4
-    )
